@@ -203,8 +203,6 @@ def conf_hessian_features(p):
     p.add_argument("-i", "--image", required=True)
     p.add_argument("-m", "--mask", default=None)
     p.add_argument("-o", "--out", required=True, help="output prefix")
-    p.add_argument("--fused", action="store_true",
-                   help="use the fused Pallas kernel (TPU)")
 
 
 def run_hessian_features(args):
@@ -213,21 +211,13 @@ def run_hessian_features(args):
     not built; its Dy-direction bug at :153-156 is NOT replicated — the
     live Hessian3DImageFilter wiring is the spec, SURVEY.md §7)."""
     import jax.numpy as jnp
+    from ife_tpu.ops.features import hessian_eig_features
 
     vol = _load(args.image)
     img = jnp.asarray(vol.data, jnp.float32)
     names = ("Eigenvalue1", "Eigenvalue2", "Eigenvalue3",
              "LaplacianOfGaussian", "GaussianCurvature", "FrobeniusNorm")
-    if args.fused:
-        from ife_tpu.kernels.fused import fused_hessian_eig
-
-        feats = np.moveaxis(
-            np.asarray(fused_hessian_eig(img, vol.spacing)), 0, -1
-        )
-    else:
-        from ife_tpu.ops.features import hessian_eig_features
-
-        feats = np.asarray(hessian_eig_features(img, vol.spacing))
+    feats = np.asarray(hessian_eig_features(img, vol.spacing))
     if args.mask:
         mask = _load(args.mask)
         feats = feats * (np.asarray(mask.data) != 0)[..., None]
@@ -411,9 +401,8 @@ def conf_determine_bin_edges(p):
 def _foreground_mask(arr: np.ndarray, labels) -> np.ndarray:
     """Membership of arr values in the (small) foreground label list.
 
-    np.isin's sort-based path measured 7.4 s on a 512^3 volume in the
-    bin-edges CLI (r5_probe22 stage attribution); a per-label equality
-    OR is O(k) fast vectorized passes (~0.1 s for typical 1-3 labels).
+    np.isin takes a sort-based path; a per-label equality OR is O(k)
+    vectorized passes, for the typical 1-3 labels.
     """
     labels = list(labels)
     fg = np.zeros(np.shape(arr), bool)

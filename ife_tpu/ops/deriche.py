@@ -8,10 +8,9 @@ and its derivatives", INRIA RR-1893, 1993) — the classic coefficients
 (a0 1.680, a1 3.735, c0 -0.6803, c1 -0.2598, omega0 0.6318, omega1 1.997,
 b0 1.783, b1 1.723) are the ones in ITK's source.
 
-The TPU compute path deliberately uses a truncated FIR sampled Gaussian
-instead (ops/stencil.py: an IIR scan is sequential along an axis — hostile
-to a 128-lane vector unit — while FIR taps ride the MXU as banded-matrix
-contractions). BOTH are approximations of the continuous Gaussian; this
+The device compute path deliberately uses a truncated FIR sampled
+Gaussian instead (ops/stencil.py: an IIR scan is sequential along an
+axis, while FIR taps vectorize across every line of the volume). BOTH are approximations of the continuous Gaussian; this
 module exists to put a NUMBER on the divergence (SURVEY.md §7 hard-part 2):
 tests/test_stencil.py bounds the FIR-vs-IIR delta and docs/design.md
 records the measured table. It is host-side NumPy, correctness-only —

@@ -1,9 +1,9 @@
-"""Closed-form eigenvalues of symmetric 3x3 matrices, vectorized for TPU.
+"""Closed-form eigenvalues of symmetric 3x3 matrices, vectorized.
 
 Re-implements the semantics of the reference's per-voxel solver
 (reference: include/ife/Numerics/Symmetric3x3EigenvalueSolver.h:33-132) as a
 branchless, fully vectorized jnp computation: the ITK per-voxel functor loop
-becomes one fused XLA elementwise program over the whole volume (VPU), with
+becomes one fused XLA elementwise program over the whole volume, with
 `jnp.where` select networks replacing the reference's branches.
 
 Semantics replicated exactly:
@@ -57,82 +57,9 @@ def _ordered_by_abs_desc_diag(a11, a22, a33):
     return e0, e1, e2
 
 
-# Chebyshev least-squares fit of cos(arccos(m)/3) on m in [0, 1] (power
-# basis, Horner). The function is analytic on [0, 1] (even in
-# psi = arccos m, and psi^2 is analytic in m), so a degree-8 fit reaches
-# 4.3e-9 in f64 — below the f32 roundoff of the Horner evaluation itself
-# (6.8e-8 measured). Replaces the Newton trisection in f32: same accuracy,
-# zero VPU divides (divides run at a fraction of FMA throughput and the
-# fused kernel is VPU-bound — probe: eigen was ~45 ms of the 57 ms pass).
-_COS13_COEF = (
-    0.8660254080410869, 0.16666626771129278, -0.04810327526051493,
-    0.02459883847130328, -0.015095279415175522, 0.009372082506501525,
-    -0.004929524933662343, 0.0017713776825497704, -0.0003058979258242973,
-)
-
-
-def _horner(coef, x):
-    acc = jnp.asarray(coef[-1], x.dtype)
-    for c in coef[-2::-1]:
-        acc = acc * x + jnp.asarray(c, x.dtype)
-    return acc
-
-
-def _cos_sin_third_arccos(m: jnp.ndarray):
-    """(cos, sin) of arccos(m)/3 for m in [0, 1], without trig — Pallas TPU
-    has no acos lowering, and mul/add/sqrt beat VPU transcendentals anyway.
-
-    f32: degree-8 polynomial for c (pure FMA chain, no divides); f64:
-    Newton on the triple-angle identity 4c^3 - 3c = m (the root lies in
-    [cos(pi/6), 1] where the cubic is well-conditioned): quadratic
-    least-squares seed (max err 5.4e-4), 3 steps reach ~1e-16.
-
-    Both derive s = sqrt(1 - c^2) from the ROUNDED c. Near m = 1 (a
-    degenerate matrix) this deliberately snaps s to 0 whenever c rounds to
-    exactly 1: m itself carries ~ulp-level error from the p2/det
-    cancellation there, so a "more faithful" s = sqrt(1-m)*S(m) would only
-    inflate that noise into a sqrt(ulp)-sized spurious eigenvalue split,
-    where snapping collapses to the (nearly correct) degenerate answer —
-    matching the reference's r >= 1 clamp behavior
-    (Symmetric3x3EigenvalueSolver.h:108-116).
-    """
-    dt = m.dtype
-    if dt == jnp.float32:
-        c = _horner(_COS13_COEF, m)
-        # One divide-free Newton polish on 4c^3 - 3c = m: the reciprocal
-        # 1/(12c^2 - 3) is a quadratic fit in y = c^2 (rel err 3.6e-3 on
-        # c in [cos(pi/6), 1]), giving step error ~ 3.6e-3 * 6.8e-8 —
-        # lands on the correctly-rounded root (ties the old 2-divide
-        # Newton) at a cost of 5 FMAs instead of a VPU divide.
-        y = c * c
-        g = jnp.asarray(0.5951957727093505, dt) + y * (
-            jnp.asarray(-0.8371248718026527, dt)
-            + jnp.asarray(0.353440250822755, dt) * y
-        )
-        c = c - ((4 * y - 3) * c - m) * g
-    else:
-        c = jnp.asarray(0.86656125, dt) + m * (
-            jnp.asarray(0.15958996, dt) - jnp.asarray(0.0265687, dt) * m
-        )
-        for _ in range(3):
-            c2 = c * c
-            c = c - ((4 * c2 - 3) * c - m) / (12 * c2 - 3)
-    s = jnp.sqrt(jnp.maximum(1 - c * c, jnp.asarray(0, dt)))
-    return c, s
-
-
-def eigenvalues_from_channels(a11, a12, a13, a22, a23, a33, use_trig=True,
-                              diag_path=True):
+def eigenvalues_from_channels(a11, a12, a13, a22, a23, a33):
     """Channel-wise core: six same-shape arrays -> (e0, e1, e2) tuple,
-    |e2| <= |e1| <= |e0|. Used directly by the Pallas kernel (no stacking
-    inside kernels — Mosaic dislikes reshapes across the lane axis).
-
-    diag_path=False drops the reference's exact diagonal branch
-    (solver.h:45-83) and keeps only a scalar-matrix (p2 == 0) guard: the
-    general closed form is correct for diagonal matrices anyway (to
-    roundoff; tie ORDER of equal-|e| channels may differ, which tests
-    already tolerate), and the ~27-select network is measurable VPU time
-    in the fused kernel. The default keeps exact reference semantics."""
+    |e2| <= |e1| <= |e0|."""
     dt = a11.dtype
     pi = jnp.asarray(np.pi, dt)
 
@@ -141,8 +68,7 @@ def eigenvalues_from_channels(a11, a12, a13, a22, a23, a33, use_trig=True,
     # ---- general (non-diagonal) trigonometric path ----
     # One rsqrt replaces the 6 normalization divides + sqrt of the naive
     # form: r = det(B)/2 with B = (A - qI)/p is computed as
-    # det(A - qI) * pinv^3 / 2 (VPU divides/sqrts run at a fraction of
-    # mul/add throughput; this path dominates the fused kernel's cost).
+    # det(A - qI) * pinv^3 / 2.
     q = (a11 + a22 + a33) * jnp.asarray(1.0 / 3.0, dt)
     d11, d22, d33 = a11 - q, a22 - q, a33 - q
     p2 = d11 * d11 + d22 * d22 + d33 * d33 + 2 * p1
@@ -161,22 +87,9 @@ def eigenvalues_from_channels(a11, a12, a13, a22, a23, a33, use_trig=True,
 
     # clip(r) reproduces the reference's r<=-1 -> phi=pi/3, r>=1 -> 0 guards.
     rc = jnp.clip(r, jnp.asarray(-1, dt), jnp.asarray(1, dt))
-    if use_trig:
-        phi = jnp.arccos(rc) * jnp.asarray(1.0 / 3.0, dt)
-        cphi = jnp.cos(phi)
-        cphi2 = jnp.cos(phi + pi * jnp.asarray(2.0 / 3.0, dt))
-    else:
-        # trig-free path (Pallas TPU; identical to ~1e-15). For r < 0 use
-        # arccos(r) = pi - arccos(|r|) and the angle-difference identities
-        # cos(pi/3 - t) = c/2 + (sqrt3/2) s, sin(pi/3 - t) = (sqrt3/2) c - s/2
-        # — no second sqrt. cos(phi + 2pi/3) = -cphi/2 - (sqrt3/2) sin(phi).
-        half = jnp.asarray(0.5, dt)
-        s32 = jnp.asarray(np.sqrt(3.0) / 2.0, dt)
-        cm, sm = _cos_sin_third_arccos(jnp.abs(rc))
-        pos = rc >= 0
-        cphi = jnp.where(pos, cm, half * cm + s32 * sm)
-        sphi = jnp.where(pos, sm, s32 * cm - half * sm)
-        cphi2 = -half * cphi - s32 * sphi
+    phi = jnp.arccos(rc) * jnp.asarray(1.0 / 3.0, dt)
+    cphi = jnp.cos(phi)
+    cphi2 = jnp.cos(phi + pi * jnp.asarray(2.0 / 3.0, dt))
     g0 = q + 2 * p * cphi
     g2 = q + 2 * p * cphi2
     g1 = 3 * q - g0 - g2  # trace identity
@@ -189,15 +102,6 @@ def eigenvalues_from_channels(a11, a12, a13, a22, a23, a33, use_trig=True,
     t1 = jnp.where(s2, t2, g1)
     t2 = jnp.where(s2, g1, t2)
 
-    if not diag_path:
-        # scalar-matrix guard only: p2 == 0 means all eigenvalues are q
-        scalar = p2 == 0
-        return (
-            jnp.where(scalar, q, t0),
-            jnp.where(scalar, q, t1),
-            jnp.where(scalar, q, t2),
-        )
-
     # ---- diagonal fast path ----
     diag = p1 == 0
     e0d, e1d, e2d = _ordered_by_abs_desc_diag(a11, a22, a33)
@@ -208,7 +112,7 @@ def eigenvalues_from_channels(a11, a12, a13, a22, a23, a33, use_trig=True,
     return e0, e1, e2
 
 
-def eigenvalues_sym3x3(A: jnp.ndarray, use_trig: bool = True) -> jnp.ndarray:
+def eigenvalues_sym3x3(A: jnp.ndarray) -> jnp.ndarray:
     """Eigenvalues of symmetric 3x3 matrices, |e3| <= |e2| <= |e1| order.
 
     Args:
@@ -217,26 +121,11 @@ def eigenvalues_sym3x3(A: jnp.ndarray, use_trig: bool = True) -> jnp.ndarray:
     Returns:
       array (..., 3) of eigenvalues ordered by descending magnitude.
     """
-    e0, e1, e2 = eigenvalues_from_channels(
-        *(A[..., i] for i in range(6)), use_trig=use_trig
-    )
+    e0, e1, e2 = eigenvalues_from_channels(*(A[..., i] for i in range(6)))
     return jnp.stack([e0, e1, e2], axis=-1)
 
 
-def eigenvalue_feature_channels(a11, a12, a13, a22, a23, a33, use_trig=True,
-                                diag_path=True):
-    """Channel-wise feature tuple (e1, e2, e3, LoG, curvature, frobenius)
-    for kernel use — no stacking."""
-    e0, e1, e2 = eigenvalues_from_channels(
-        a11, a12, a13, a22, a23, a33, use_trig=use_trig, diag_path=diag_path
-    )
-    s = e0 + e1 + e2
-    prod = e0 * e1 * e2
-    frob = jnp.sqrt(e0 * e0 + e1 * e1 + e2 * e2)
-    return e0, e1, e2, s, prod, frob
-
-
-def eigenvalue_features(A: jnp.ndarray, use_trig: bool = True) -> jnp.ndarray:
+def eigenvalue_features(A: jnp.ndarray) -> jnp.ndarray:
     """Six eigenvalue-derived features per matrix.
 
     [e1, e2, e3, sum(e), prod(e), frobenius] — the reference's
@@ -248,7 +137,7 @@ def eigenvalue_features(A: jnp.ndarray, use_trig: bool = True) -> jnp.ndarray:
     Returns:
       array (..., 6).
     """
-    ev = eigenvalues_sym3x3(A, use_trig=use_trig)
+    ev = eigenvalues_sym3x3(A)
     e0, e1, e2 = ev[..., 0], ev[..., 1], ev[..., 2]
     s = e0 + e1 + e2
     prod = e0 * e1 * e2

@@ -34,6 +34,7 @@ import jax.numpy as jnp
 
 from ife_tpu.ops.eigen import eigenvalue_features
 from ife_tpu.ops.stencil import (
+    centered_normalized_convolution,
     gradient_magnitude,
     hessian,
     normalized_gaussian_convolution,
@@ -77,105 +78,36 @@ def features8(
     m = clamp_mask(mask)
     mf = m.astype(image.dtype)
 
-    smoothed = normalized_gaussian_convolution(image, mf, sigma, spacing, truncate)
-    gm = gradient_magnitude(smoothed, spacing)
-    H = hessian(smoothed, spacing)
+    # derivatives of the offset-free field t (smoothed = t + k): see
+    # centered_normalized_convolution for why
+    t, k = centered_normalized_convolution(image, mf, sigma, spacing,
+                                           truncate)
+    gm = gradient_magnitude(t, spacing)
+    H = hessian(t, spacing)
     eig = eigenvalue_features(H)  # (..., 6)
 
     feats = jnp.concatenate(
-        [smoothed[..., None], gm[..., None], eig], axis=-1
+        [(t + k)[..., None], gm[..., None], eig], axis=-1
     )
     inside = (m != 0)[..., None]
     return jnp.where(inside, feats, jnp.zeros((), image.dtype))
 
 
 @functools.partial(jax.jit, static_argnames=("sigma", "spacing", "truncate"))
-def features8_jit(image, mask, *, sigma, spacing=(1.0, 1.0, 1.0), truncate=4.5):
-    return features8(image, mask, sigma, spacing, truncate)
-
-
-# the line-sweep kernel's two input ring buffers must fit in VMEM next to
-# the block pipeline AND the compiler's scoped temporaries. Round-4
-# recalibration (r4_probe14): at 512^3 the Mosaic stack wants ~42 MB of
-# temporaries on top of rings + block pipeline (a sigma=2.4 sweep, rings
-# 58 MB, failed compile at 122.7 MB scoped vs the 112 MB limit), so the
-# ring budget is 44 MB — sigma <= ~1.7 at 0.78 mm on a 512^2 slice; the
-# staged path (nc sweep + post_stream) measures within ~2% of the full
-# sweep there anyway.
-_SWEEP_RING_BUDGET = 44 * 1024 * 1024
-
-
-def _sweep_fits(sigma, spacing, shape, truncate=4.5):
-    """True when fused_features8_sweep's VMEM ring buffers fit for this
-    scale and slice size (rx <= ~16 on a 512^2 slice)."""
-    import math
-
-    rx = max(1, math.ceil(truncate * float(sigma) / float(spacing[0])))
-    Yp = -(-shape[1] // 8) * 8
-    Z = -(-shape[2] // 128) * 128
-    return 2 * (2 * rx + 1) * Yp * Z * 4 <= _SWEEP_RING_BUDGET
-
-
-# the smoothing-only sweep has no stencil/eigen tail, so its compiler
-# temporaries are smaller and the rings can be larger than the full
-# sweep's (round-4 recalibration, same method as _SWEEP_RING_BUDGET):
-# sigma <= ~2.4 at 0.78 mm on a 512^2 slice untiled; larger radii go
-# through the Y-tiled form (fused_normalized_conv_sweep_tiled)
-_NC_RING_BUDGET = 66 * 1024 * 1024
-
-
-def _nc_sweep_fits(sigma, spacing, shape, truncate=4.5):
-    import math
-
-    rx = max(1, math.ceil(truncate * float(sigma) / float(spacing[0])))
-    Yp = -(-shape[1] // 8) * 8
-    Z = -(-shape[2] // 128) * 128
-    return 2 * (2 * rx + 3) * Yp * Z * 4 <= _NC_RING_BUDGET
-
-
-def _nc_tile_plan(sigma, spacing, shape, truncate=4.5, max_tiles=4):
-    """Smallest Y-tile count (2..max_tiles) whose radius-extended tiles
-    fit the nc sweep's VMEM rings, or None.
-
-    NOTE (round-4 measurement, r4_probe14/15): tiling extends the sweep
-    kernel's VMEM reach, but the sweep's per-row tap work scales with
-    the radius while the MXU band-einsum smoothing is ~flat — at 512^3
-    the 3-tiled sweep measured 71.6 ms at sigma=4.8 vs 22.8 for the
-    einsum path, so the AUTO dispatchers no longer use tiling; it
-    remains available (and exactly tested) for explicit callers."""
-    import math
-
-    ry = max(1, math.ceil(truncate * float(sigma) / float(spacing[1])))
-    Y = shape[1]
-    for n in range(2, max_tiles + 1):
-        yt = -(-Y // n) + 2 * ry
-        if _nc_sweep_fits(sigma, spacing, (shape[0], yt, shape[2]), truncate):
-            return n
-    return None
-
-
-# Dispatch crossover (r4_probe14/15, 512^3 and 256^3 measurements): the
-# sweep kernels' per-row tap cost grows ~linearly with the smoothing
-# radius, while the MXU band-einsum smoothing + post_stream path is
-# ~radius-independent (30-32 ms at 512^3 for sigma 2.4/3.5/4.8). The
-# sweeps win while the radius is small (sigma=1.2/512^3: 21.8 vs ~30),
-# lose past rx ~ 10-14 (sigma=2.4/256^3: 6.0 vs 4.7). rx <= 10 keeps
-# every measured win on the sweep side.
-_SWEEP_RX_MAX = 10
-
-
-def _sweep_rx_ok(sigma, spacing, truncate=4.5):
-    import math
-
-    return math.ceil(truncate * float(sigma) / float(spacing[0])) \
-        <= _SWEEP_RX_MAX
+def features8_channels_jit(image, mask, *, sigma, spacing=(1.0, 1.0, 1.0),
+                           truncate=4.5):
+    """features8 as one jitted program returning a TUPLE of 8 (X, Y, Z)
+    channels. The channel slices sit inside the jit, so XLA emits eight
+    outputs and never materializes the channel-last (X, Y, Z, 8)
+    volume."""
+    f = features8(image, mask, sigma, spacing, truncate)
+    return tuple(f[..., k] for k in range(NUM_FEATURES))
 
 
 def normalized_convolution_auto(image, certainty, sigma,
                                 spacing=(1.0, 1.0, 1.0), truncate=4.5):
-    """Masked (normalized) Gaussian convolution with TPU dispatch: the
-    line-sweep kernel (3 volumes of HBM traffic) where its rings fit,
-    the staged MXU path elsewhere.
+    """Masked (normalized) Gaussian convolution as the CLI calls it: the
+    separable XLA expression of ops.stencil.normalized_gaussian_convolution.
 
     The certainty is used RAW (no clamp): the reference
     NormalizedGaussianConvolutionImageFilter.hxx:40-63 consumes the
@@ -185,153 +117,29 @@ def normalized_convolution_auto(image, certainty, sigma,
     to per-voxel clipping, so continuous or >1-valued certainties must
     not be clipped here. Only the features8 paths clamp, mirroring the
     reference's own ClampImageFilter(0,1) there."""
-    from ife_tpu.ops.stencil import normalized_gaussian_convolution
-
     c = jnp.asarray(certainty).astype(image.dtype)
-    if (jax.devices()[0].platform == "tpu" and image.ndim == 3
-            and _nc_sweep_fits(sigma, spacing, image.shape, truncate)
-            and _sweep_rx_ok(sigma, spacing, truncate)):
-        from ife_tpu.kernels.fused import fused_normalized_conv_sweep
-
-        return fused_normalized_conv_sweep(
-            image, c, float(sigma), tuple(spacing), truncate)
-    # larger radii: the MXU band-einsum separable path — measured
-    # radius-independent (~23 ms/512^3) where the sweep's tap cost grows
-    # linearly (31 ms at sigma=2.4, 72 tiled at 4.8 — r4_probe14/15)
     return normalized_gaussian_convolution(
         image, c, float(sigma), tuple(spacing), truncate)
 
 
-def features8_auto(image, mask, sigma, spacing=(1.0, 1.0, 1.0), truncate=4.5):
-    """features8 with automatic backend dispatch on TPU; the XLA-composed
-    expression elsewhere. Returns (X, Y, Z, 8) either way.
-
-    TPU dispatch (round-4 measurements, r4_probe14/15, loop-amortized):
-      * small radii (rx <= 10 voxels AND the VMEM rings fit):
-        fused_features8_sweep — the ENTIRE pipeline as a line sweep
-        (16.8 ms at sigma=0.6, 21.8 at 1.2, 512^3);
-      * larger radii: MXU band-einsum smoothing + the STREAMING
-        post-smoothing kernel (fused_features8_post_stream) — measured
-        ~radius-INDEPENDENT (30.8/32.2/30.1 ms at sigma 2.4/3.5/4.8,
-        512^3) because the MXU eats the growing tap count while the
-        sweep's per-row ring-tap work grows linearly with it.
-
-    History: a fully-fused kernel with in-kernel MXU matmuls
-    (fused_features8_full, round 2) was no faster than staged and produced
-    wrong derivative channels on real hardware; docs/design.md records the
-    negative result, the fusion ladder (staged -> xs -> tap -> sweep),
-    and the round-4 measurements that moved large radii back to the MXU.
-    On-chip parity of every dispatched kernel is gated by bench.py
-    --verify.
-    """
-    if jax.devices()[0].platform == "tpu" and image.ndim == 3:
-        # ONE dispatch tree (features8_auto_channels) for both forms;
-        # stack(axis=-1) builds channel-last in one copy (vs the old
-        # stack(0) + moveaxis pair)
-        return jnp.stack(
-            features8_auto_channels(image, mask, sigma, spacing, truncate),
-            axis=-1,
-        )
-    return features8_jit(
-        image, mask, sigma=float(sigma), spacing=tuple(spacing),
-        truncate=truncate,
-    )
-
-
 def features8_auto_channels(image, mask, sigma, spacing=(1.0, 1.0, 1.0),
                             truncate=4.5):
-    """features8_auto as a TUPLE of 8 (X, Y, Z) channel arrays — no
-    channel-last stack/moveaxis: at 512^3 those are two extra 4.3 GB
-    transient copies, enough to exhaust HBM next to the kernel outputs
-    (found by the device make-bag path, round 4). Prefer this form when
-    consumers read channels independently."""
-    if jax.devices()[0].platform == "tpu" and image.ndim == 3:
-        # ONE source of truth for the branch choice: the same helper
-        # the verify gate keys its entries by (features8_dispatch_branch)
-        if features8_dispatch_branch(sigma, spacing, image.shape,
-                                     truncate) == "sweep":
-            from ife_tpu.kernels.fused import fused_features8_sweep
-
-            return fused_features8_sweep(
-                image, mask, float(sigma), tuple(spacing), truncate,
-                stack=False,
-            )
-        from ife_tpu.kernels.fused import fused_features8
-
-        return fused_features8(
-            image, mask, float(sigma), tuple(spacing), truncate,
-            stack=False,
-        )
-    f = features8_jit(
+    """The 8 feature channels at one scale as a tuple of (X, Y, Z) arrays:
+    the entry point the CLI, the bag builders and the benchmark call.
+    Preferred when consumers read channels independently."""
+    return features8_channels_jit(
         image, mask, sigma=float(sigma), spacing=tuple(spacing),
         truncate=truncate,
     )
-    return tuple(f[..., k] for k in range(NUM_FEATURES))
 
 
-def features8_dispatch_branch(sigma, spacing, shape, truncate=4.5) -> str:
-    """The kernel branch features8_auto_channels would take on TPU for
-    this (sigma, spacing, shape) — the single source of truth the
-    verify gate keys its entries by, so the gate cannot drift from the
-    dispatch table (round-4 VERDICT weak-4: the gate verified a sweep
-    config the dispatcher never sent).
-
-    Returns one of: "sweep" (fused_features8_sweep end to end),
-    "nc_sweep+post_stream", "xs_stream" (y/z einsums +
-    fused_features8_xs_stream), "einsum+post_stream" (the fully staged
-    path).
-    """
-    from ife_tpu.kernels.fused import _xs_stream_fits
-
-    if (_sweep_fits(sigma, spacing, shape, truncate)
-            and _sweep_rx_ok(sigma, spacing, truncate)):
-        return "sweep"
-    if (_nc_sweep_fits(sigma, spacing, shape, truncate)
-            and _sweep_rx_ok(sigma, spacing, truncate)):
-        return "nc_sweep+post_stream"
-    if _xs_stream_fits(sigma, spacing, shape, truncate):
-        return "xs_stream"
-    return "einsum+post_stream"
-
-
-def multiscale_features8_fused(
-    image: jnp.ndarray,
-    mask: jnp.ndarray,
-    sigmas: Sequence[float],
-    spacing: Sequence[float] = (1.0, 1.0, 1.0),
-    truncate: float = 4.5,
-    interpret: bool = False,
-    stack: bool = True,
-):
-    """All scales' feature passes in ONE Pallas launch: per scale, x and
-    z Gaussians ride the XLA band einsums (radius-independent), then the
-    multi-scale ys kernel computes every scale's y smoothing (in-kernel
-    banded MXU contraction), divide, and masked feature chain in a
-    single streaming pass (kernels.fused.fused_features8_ys_multi).
-
-    This is the fix for the measured config-3 ceiling: at 256^3 each
-    per-scale kernel chain pays launch + pipeline-fill costs that
-    dominate over the traffic floor (r4_probe17 attribution); one launch
-    amortizes them across scales. Returns (S, 8, X, Y, Z) when
-    stack=True, else a tuple of S 8-channel tuples.
-    """
-    from ife_tpu.kernels.fused import fused_features8_ys_multi
-    from ife_tpu.ops.stencil import gaussian_smooth_axis
-
-    m = clamp_mask(mask)
-    mf = m.astype(image.dtype)
-    num0 = image * mf
-
-    def sxz(v, sig):
-        v = gaussian_smooth_axis(v, 0, sig, spacing[0], truncate)
-        return gaussian_smooth_axis(v, 2, sig, spacing[2], truncate)
-
-    nums = tuple(sxz(num0, float(s)) for s in sigmas)
-    dens = tuple(sxz(mf, float(s)) for s in sigmas)
-    return fused_features8_ys_multi(
-        nums, dens, m, tuple(float(s) for s in sigmas), tuple(spacing),
-        truncate, interpret=interpret, stack=stack,
-    )
+def features8_auto(image, mask, sigma, spacing=(1.0, 1.0, 1.0), truncate=4.5):
+    """features8_auto_channels stacked channel-last, (X, Y, Z, 8). Both
+    forms come from the same compiled program, so they agree bit for bit
+    (the host and device bag paths rely on it)."""
+    return jnp.stack(
+        features8_auto_channels(image, mask, sigma, spacing, truncate),
+        axis=-1)
 
 
 def multiscale_features(
@@ -345,7 +153,7 @@ def multiscale_features(
 
     The reference loops scales at the tool level re-running the whole DAG
     (tools/MakeBag.cxx:405-412); here scales stay on-device, each through
-    the per-scale dispatch (sweep kernel / MXU-staged — features8_auto).
+    features8_auto.
     """
     per_scale = [
         features8_auto(image, mask, float(s), spacing, truncate)

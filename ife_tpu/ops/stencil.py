@@ -12,19 +12,18 @@ The reference builds these from ITK filter objects:
   * itk::SmoothingRecursiveGaussianImageFilter (Deriche IIR approximation,
     sigma in physical units).
 
-TPU-first design notes:
+Design notes:
   * Each stencil is a pad(edge)+shift+fma expression — XLA fuses the whole
-    thing into one VPU pass; there are no per-filter full-volume
+    thing into one elementwise pass; there are no per-filter full-volume
     intermediates like ITK's demand-driven DAG.
   * The Gaussian is a truncated FIR sampled-Gaussian (radius ~ 4.5 sigma,
     tail mass < 1e-5) instead of ITK's IIR recursion: an IIR scan is
-    sequential along an axis (bad for a 512-lane vector unit), while FIR
-    taps vectorize perfectly and the truncation error is comparable to the
-    Deriche approximation error of the reference. This is the documented
+    sequential along an axis, while FIR taps vectorize across every line
+    of the volume, and the truncation error is comparable to the Deriche
+    approximation error of the reference. This is the documented
     divergence called out in SURVEY.md §7.
-  * FIR convolution is applied axis-by-axis via a banded-matrix contraction
-    (jnp.einsum over an (N_out, N_in) tap matrix). On TPU this rides the
-    MXU, which beats gather/shift chains on the VPU for K up to ~50 taps.
+  * FIR convolution is applied axis-by-axis as an edge pad plus a VALID
+    1-D `conv_general_dilated` at Precision.HIGHEST.
 """
 from __future__ import annotations
 
@@ -39,13 +38,10 @@ import jax.numpy as jnp
 
 Axis = int  # 0=x, 1=y, 2=z (ITK direction order)
 
-# MXU precision for the Gaussian band contractions. HIGHEST (6-pass f32
-# decomposition) was the conservative round-1 choice; the 3-pass HIGH
-# halves MXU work at ~1e-6 relative error — far inside the 1e-4 on-chip
-# verify budget (r5_probe20 measures both). Module-level so probes can
-# flip it (with jax.clear_caches()); the product default is set from the
-# measured accuracy/speed trade.
-MATMUL_PRECISION = jax.lax.Precision.HIGHEST
+# Precision of the smoothing convolution. An f32 conv or dot on a GPU may
+# run in TF32 (~1e-3 relative) unless asked for HIGHEST; the f32 features
+# are held to 1e-4 of the f64 reference, so TF32 is never acceptable here.
+CONV_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _edge_pad(x: jnp.ndarray, axis: Axis, lo: int, hi: int) -> jnp.ndarray:
@@ -77,9 +73,8 @@ def derivative(
     fm = _shift(xp, axis, 0, n)
     f0 = _shift(xp, axis, 1, n)
     fp = _shift(xp, axis, 2, n)
-    # multiply by the f64-folded reciprocal (same constant as the fused
-    # Pallas kernel, so the two paths agree to the ulp; divides are the
-    # slow VPU op class on TPU)
+    # multiply by the f64-folded reciprocal (the same constant the sharded
+    # path uses, so the two agree to the ulp)
     h = float(spacing)
     if order == 1:
         return (fp - fm) * jnp.asarray(1.0 / (2.0 * h), x.dtype)
@@ -144,84 +139,6 @@ def _gaussian_taps(sigma_vox: float, radius: int) -> np.ndarray:
     return g / g.sum()
 
 
-@functools.lru_cache(maxsize=1024)
-def _band_matrix(n: int, sigma_vox: float, radius: int) -> np.ndarray:
-    """(n, n) matrix W with W[o, i] = sum of taps mapping padded-in i to out o
-    under edge replication. out = W @ in  along the convolved axis."""
-    taps = _gaussian_taps(sigma_vox, radius)
-    W = np.zeros((n, n), dtype=np.float64)
-    for t_idx, t in enumerate(taps):
-        offs = t_idx - radius
-        for o in range(n):
-            src = min(max(o + offs, 0), n - 1)  # edge replication
-            W[o, src] += t
-    return W
-
-
-@functools.lru_cache(maxsize=1024)
-def _band_matrix_valid(n_in: int, sigma_vox: float, radius: int) -> np.ndarray:
-    """(n_in - 2*radius, n_in) VALID band matrix: W[o, o+t] = taps[t]."""
-    taps = _gaussian_taps(sigma_vox, radius)
-    n_out = n_in - 2 * radius
-    W = np.zeros((n_out, n_in), dtype=np.float64)
-    for t_idx, t in enumerate(taps):
-        W[np.arange(n_out), np.arange(n_out) + t_idx] = t
-    return W
-
-
-def _on_tpu() -> bool:
-    return jax.devices()[0].platform == "tpu"
-
-
-def _einsum_axis(W: jnp.ndarray, x: jnp.ndarray, axis: int) -> jnp.ndarray:
-    """Contract W (n_out, n_in) against x along `axis` on the MXU.
-
-    On TPU a banded-matrix matmul beats the conv lowering ~5x at 512^3
-    (benchmarks/probe5.py: 6.4 ms vs 34 ms per volume-axis pass) — the MXU
-    eats the O(n)-vs-O(K) FLOP overhead for free while the conv path pays
-    VPU relayouts/transposes per axis.
-    """
-    letters = "abcdefghij"
-    in_sub = letters[: x.ndim]
-    out_sub = in_sub.replace(in_sub[axis], "o")
-    return jnp.einsum(
-        f"o{in_sub[axis]},{in_sub}->{out_sub}", W, x,
-        precision=MATMUL_PRECISION,
-    )
-
-
-def _blocked_band_axis(
-    W: jnp.ndarray, x: jnp.ndarray, axis: int, radius: int
-) -> jnp.ndarray:
-    """Band-aware blocked contraction of the (n, n) band matrix W against x
-    along `axis`.
-
-    A dense (n, n) MXU contraction does O(n) FLOPs per voxel for a band of
-    width 2*radius+1 — at n=512, K=13 that is ~40x wasted MXU work, and the
-    measured 19 ms/volume smoothing cost is exactly that FLOP wall. Blocking
-    the OUTPUT axis into tiles of B and contracting each tile against only
-    its (B + 2*radius) input window cuts the per-voxel FLOPs to
-    O(B + 2*radius); B is chosen so the contraction extent is the 128-wide
-    MXU tile (minus what the band halo needs), i.e. ~4x fewer MXU passes at
-    n=512. Slicing the SAME dense W preserves the edge-replication rows
-    exactly, so results are bit-comparable to the dense path up to f32
-    sum-order roundoff.
-    """
-    n = x.shape[axis]
-    B = max(8, 128 - 2 * radius)
-    if n <= B + 2 * radius:  # window would cover everything — dense wins
-        return _einsum_axis(W, x, axis)
-    outs = []
-    for b0 in range(0, n, B):
-        b1 = min(b0 + B, n)
-        lo = max(0, b0 - radius)
-        hi = min(n, b1 + radius)
-        Wb = jax.lax.slice(W, (b0, lo), (b1, hi))
-        xw = jax.lax.slice_in_dim(x, lo, hi, axis=axis)
-        outs.append(_einsum_axis(Wb, xw, axis))
-    return jnp.concatenate(outs, axis=axis)
-
-
 def _conv1d_valid(x_last: jnp.ndarray, taps: jnp.ndarray) -> jnp.ndarray:
     """VALID 1D convolution along the last axis: (..., n+K-1) -> (..., n).
 
@@ -233,7 +150,7 @@ def _conv1d_valid(x_last: jnp.ndarray, taps: jnp.ndarray) -> jnp.ndarray:
     out = jax.lax.conv_general_dilated(
         lhs, rhs, window_strides=(1,), padding="VALID",
         dimension_numbers=("NCH", "OIH", "NCH"),
-        precision=MATMUL_PRECISION,
+        precision=CONV_PRECISION,
         preferred_element_type=x_last.dtype,
     )
     return out.reshape(lead + (out.shape[-1],))
@@ -243,14 +160,8 @@ def convolve_valid_axis(
     x_ext: jnp.ndarray, axis: Axis, sigma_vox: float, radius: int
 ) -> jnp.ndarray:
     """VALID Gaussian along `axis` of an already-extended array
-    ((..., n+2*radius, ...) -> (..., n, ...)). TPU: banded MXU contraction;
-    elsewhere: 1D conv. Used by the sharded halo path."""
-    if _on_tpu():
-        W = jnp.asarray(
-            _band_matrix_valid(x_ext.shape[axis], sigma_vox, radius),
-            dtype=x_ext.dtype,
-        )
-        return _einsum_axis(W, x_ext, axis)
+    ((..., n+2*radius, ...) -> (..., n, ...)): a 1-D conv over the moved
+    axis. Used by gaussian_smooth_axis and the sharded halo path."""
     taps = jnp.asarray(_gaussian_taps(sigma_vox, radius), dtype=x_ext.dtype)
     y = _conv1d_valid(jnp.moveaxis(x_ext, axis, -1), taps)
     return jnp.moveaxis(y, -1, axis)
@@ -261,30 +172,14 @@ def gaussian_smooth_axis(
     truncate: float = 4.5,
 ) -> jnp.ndarray:
     """1D Gaussian along `axis`, sigma in PHYSICAL units (like ITK),
-    ZeroFluxNeumann boundary: edge-pad + VALID convolution.
-
-    O(K) work per voxel (K = 2*radius+1 taps). An earlier design used a
-    dense (n, n) banded-matrix MXU contraction — O(n) per voxel, ~50x the
-    FLOPs at n=512 for an 11-tap kernel; the conv form is the roofline
-    choice and XLA:TPU lowers small-K convs efficiently.
-    """
+    ZeroFluxNeumann boundary: edge-pad + VALID convolution, O(K) work per
+    voxel (K = 2*radius+1 taps)."""
     if sigma <= 0:
         return x
     sigma_vox = float(sigma) / float(spacing)
     radius = gaussian_radius(sigma_vox, truncate)
-    if _on_tpu():
-        # square band matrix with the edge replication folded into the
-        # boundary rows — no pad pass, MXU contractions blocked along the
-        # output axis so the FLOPs track the band width, not n (see
-        # _blocked_band_axis; identical to the conv path to f32 roundoff)
-        W = jnp.asarray(
-            _band_matrix(x.shape[axis], sigma_vox, radius), dtype=x.dtype
-        )
-        return _blocked_band_axis(W, x, axis, radius)
-    taps = jnp.asarray(_gaussian_taps(sigma_vox, radius), dtype=x.dtype)
-    xp = _edge_pad(x, axis, radius, radius)
-    y = _conv1d_valid(jnp.moveaxis(xp, axis, -1), taps)
-    return jnp.moveaxis(y, -1, axis)
+    return convolve_valid_axis(
+        _edge_pad(x, axis, radius, radius), axis, sigma_vox, radius)
 
 
 def gaussian_smooth(
@@ -306,6 +201,40 @@ def gaussian_smooth(
     return x
 
 
+def smoothing_offset(image: jnp.ndarray) -> jnp.ndarray:
+    """The image mean rounded to an integer, in the image dtype (0 if the
+    mean is not finite). Rounding makes the offset independent of the
+    summation order, so a sharded run (a psum of per-shard sums) and a
+    single-device run smooth about the same value."""
+    k = jnp.round(jnp.mean(image))
+    return jnp.where(jnp.isfinite(k), k, 0).astype(image.dtype)
+
+
+def centered_normalized_convolution(
+    image: jnp.ndarray,
+    certainty: jnp.ndarray,
+    sigma: float,
+    spacing: Sequence[float] = (1.0, 1.0, 1.0),
+    truncate: float = 4.5,
+):
+    """(t, k) with t + k = G_sigma*(c*T) / G_sigma*c: the image is smoothed
+    about an offset k = smoothing_offset(image), its rounded mean.
+
+    Normalized convolution is exact under a constant offset —
+    G*(c(T-k))/G*c = G*(cT)/G*c - k for any certainty — so the offset
+    changes nothing mathematically. Numerically it keeps the f32 sums
+    small: CT values sit hundreds of HU away from zero, and the rounding
+    of the smoothed field, amplified by 4/h^2 in the second differences,
+    was the whole f32 error of the Hessian channels (docs/design.md,
+    precision policy). Derivatives are taken of t, which needs no k.
+    """
+    c = certainty.astype(image.dtype)
+    k = smoothing_offset(image)
+    num = gaussian_smooth((image - k) * c, sigma, spacing, truncate)
+    den = gaussian_smooth(c, sigma, spacing, truncate)
+    return num / den, k
+
+
 def normalized_gaussian_convolution(
     image: jnp.ndarray,
     certainty: jnp.ndarray,
@@ -320,12 +249,8 @@ def normalized_gaussian_convolution(
     multiply -> two Gaussians -> divide, with NO epsilon in the divide.
     Far outside the certainty support this is IEEE 0/0 = nan, exactly like
     the reference; callers mask the result (SURVEY.md §7 hard-part 5).
+    Computed about the image mean (centered_normalized_convolution).
     """
-    c = certainty.astype(image.dtype)
-    # numerator and denominator are smoothed SEPARATELY: batching them on
-    # a stacked channel axis measures ~2x slower on TPU either way round
-    # (trailing size-2 lands on the 128-lane minor dim; leading size-2
-    # degrades the einsum's matmul tiling) — plain 3D contractions win.
-    num = gaussian_smooth(image * c, sigma, spacing, truncate)
-    den = gaussian_smooth(c, sigma, spacing, truncate)
-    return num / den
+    t, k = centered_normalized_convolution(image, certainty, sigma, spacing,
+                                           truncate)
+    return t + k

@@ -1,9 +1,9 @@
 """Multi-device domain decomposition for dense 3D feature extraction.
 
 The reference is strictly single-node (SURVEY.md §2.4) — every component
-here is new TPU-native design: the voxel grid is block-sharded over a
+here is new design: the voxel grid is block-sharded over a
 `jax.sharding.Mesh`, stencils get their neighbor slabs via `ppermute` halo
-exchange over ICI, and statistics reduce with `psum`.
+exchange, and statistics reduce with `psum`.
 """
 from ife_tpu.parallel.mesh import (  # noqa: F401
     crop_from_mesh,

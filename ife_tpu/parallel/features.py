@@ -2,12 +2,12 @@
 ife_tpu.ops re-expressed over a block-sharded voxel grid.
 
 Design (new — the reference is single-node, SURVEY.md §2.4):
-  * the volume is block-sharded along X (1D mesh) or X,Y (2D mesh); Z — the
-    TPU lane axis — stays local;
+  * the volume is block-sharded along X (1D mesh) or X,Y (2D mesh); Z —
+    the minor, contiguous axis — stays local;
   * Gaussian smoothing along a sharded axis = radius-R halo exchange + a
-    rectangular band-matrix contraction producing exactly the kept region
-    (the halo's edge replication reproduces ITK's ZeroFluxNeumann clamp, so
-    results match the single-device banded contraction);
+    VALID convolution producing exactly the kept region (the halo's edge
+    replication reproduces ITK's ZeroFluxNeumann clamp, so results match
+    the single-device edge-pad + convolution);
   * all finite differences after smoothing need radius 1 per axis — one
     more halo exchange of the smoothed field, then every derivative
     (including the cascaded cross terms Dx→Dy etc., reference
@@ -16,17 +16,19 @@ Design (new — the reference is single-node, SURVEY.md §2.4):
   * eigen features / masking are elementwise-local;
   * per-block results compose into the same (X, Y, Z, 8) global array as
     ops.features.features8 — parity is tested on the 8-device CPU mesh.
+
+The halo exchange and psum collectives are XLA collectives: on a GPU host
+XLA hands them to NCCL over NVLink, on the CPU mesh to its own transport.
 """
 from __future__ import annotations
 
 import functools
-import math
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 from ife_tpu.ops import stencil
@@ -36,7 +38,7 @@ from ife_tpu.parallel.mesh import volume_pspec
 
 
 # ---------------------------------------------------------------------------
-# banded Gaussian on an extended block
+# Gaussian on an extended block
 # ---------------------------------------------------------------------------
 
 def _smooth_axis_block(
@@ -133,45 +135,18 @@ def _grad_hessian_block(
     return gm, H
 
 
-def _halo_or_edge_pad(arr: jnp.ndarray, sharded_axes: Dict[int, str],
-                      radius=1) -> jnp.ndarray:
-    """Extend X and Y by `radius` (an int or per-axis (rx, ry)): ppermute
-    halos on sharded axes (true faces edge-replicated inside
-    halo_exchange), edge pad on local ones — exactly the boundary layer
-    the pre_padded fused kernels consume."""
-    radii = (radius, radius) if isinstance(radius, int) else radius
-    for axis in (0, 1):
-        r = radii[axis]
-        if r <= 0:
-            continue
-        if axis in sharded_axes:
-            arr = halo_exchange(arr, axis, r, sharded_axes[axis])
-        else:
-            arr = stencil._edge_pad(arr, axis, r, r)
-    return arr
-
-
 def _features8_block(
     img: jnp.ndarray,
     msk: jnp.ndarray,
+    offset: jnp.ndarray,
     sigma: float,
     spacing: Sequence[float],
     truncate: float,
     sharded_axes: Dict[int, str],
-    use_fused: bool = False,
-) -> jnp.ndarray:
+) -> Tuple[jnp.ndarray, ...]:
     m = jnp.clip(msk, 0, 1)
     mf = m.astype(img.dtype)
 
-    # NOTE: a fully-fused per-shard kernel (fused_features8_full, all
-    # smoothing inside the kernel via in-kernel MXU matmuls) was built,
-    # measured no faster than the staged path, produced wrong on-chip
-    # derivative channels (Mosaic lowering fault), and was deleted in
-    # round 3 — negative result recorded in docs/design.md. The staged
-    # per-shard path below is the verified product path.
-
-    # numerator and denominator smoothed separately (channel-stacking
-    # measures ~2x slower on TPU — see normalized_gaussian_convolution)
     def smooth(vol):
         for axis in range(3):
             if axis in sharded_axes:
@@ -185,36 +160,15 @@ def _features8_block(
                 )
         return vol
 
-    s = smooth(img * mf) / smooth(mf)
+    # smoothed about the global offset, derivatives of the offset-free
+    # field — as stencil.centered_normalized_convolution does
+    t = smooth((img - offset) * mf) / smooth(mf)
 
-    if use_fused:
-        # per-shard STREAMING Pallas kernel (no manual window DMA — the
-        # windowed kernel's DMA overhead was the round-3 sharded
-        # wrapper's 2.3x)
-        from ife_tpu.kernels.fused import fused_features8_post_stream
-
-        if set(sharded_axes) <= {0}:
-            # 1D x-sharded mesh: zero-copy halo ROWS of the smoothed
-            # field instead of materializing an extended block
-            if 0 in sharded_axes:
-                from ife_tpu.parallel.halo import halo_slabs
-
-                halo = halo_slabs(s, 0, 1, sharded_axes[0])
-            else:
-                halo = None
-            return fused_features8_post_stream(
-                s, m, tuple(spacing), stack=False, x_halo=halo
-            )
-        s_ext = _halo_or_edge_pad(s, sharded_axes)
-        return fused_features8_post_stream(
-            s_ext, m, tuple(spacing), pre_padded=True, stack=False
-        )
-
-    gm, H = _grad_hessian_block(s, sharded_axes, spacing)
+    gm, H = _grad_hessian_block(t, sharded_axes, spacing)
     eig = eigenvalue_features(H)
     inside = m != 0
     zero = jnp.zeros((), img.dtype)
-    chans = (s, gm) + tuple(eig[..., k] for k in range(6))
+    chans = (t + offset, gm) + tuple(eig[..., k] for k in range(6))
     return tuple(jnp.where(inside, c, zero) for c in chans)
 
 
@@ -226,126 +180,30 @@ def _sharded_axis_map(mesh: Mesh) -> Dict[int, str]:
     return {i: name for i, name in enumerate(mesh.axis_names)}
 
 
-def _resolve_use_fused(use_fused) -> bool:
-    """None -> fused Pallas per-shard kernels on TPU, XLA elsewhere (the
-    interpreter-free fused path cannot run on a CPU mesh)."""
-    if use_fused is None:
-        return jax.devices()[0].platform == "tpu"
-    return bool(use_fused)
-
-
-def _features8_block_sweep(
-    img: jnp.ndarray,
-    msk: jnp.ndarray,
-    sigma: float,
-    spacing: Sequence[float],
-    truncate: float,
-    sharded_axes: Dict[int, str],
-    radii: Tuple[int, int],
-    axis_sizes: Dict[int, int],
-) -> Tuple[jnp.ndarray, ...]:
-    """features8 of a shard via the full line-sweep kernel: exchange a
-    (smoothing radius + 1)-deep halo on the sharded axes, run
-    fused_features8_sweep on the extended block, keep the core.
-
-    SMOOTHING composes exactly through the halo (real neighbor data
-    interior; edge replication at true faces IS clamp smoothing). The
-    STENCIL does not: at a true volume face its phantom must clamp to
-    the SMOOTHED field (s(-1) := s(0)), which is NOT the smoothing of
-    the replicated raw rows the halo holds there — the round-5 verify
-    gate measured 35-50% error on the derivative channels in the
-    outermost layers before this was fixed (r5_probe22). The kernel
-    therefore takes DYNAMIC clamp rows: the kept core's faces on
-    true-volume sides (axis_index 0 / n-1), +-2^30 sentinels on interior
-    shard boundaries where the halo data is real."""
-    from ife_tpu.kernels.fused import fused_features8_sweep
-
-    core = img.shape
-    lo = [0, 0]
-    for axis in (0, 1):
-        if axis in sharded_axes:
-            r = radii[axis] + 1
-            img = halo_exchange(img, axis, r, sharded_axes[axis])
-            msk = halo_exchange(msk, axis, r, sharded_axes[axis])
-            lo[axis] = r
-    big = jnp.int32(1 << 30)
-    cl = []
-    for axis in (0, 1):
-        if axis in sharded_axes:
-            idx = jax.lax.axis_index(sharded_axes[axis])
-            n_sh = axis_sizes[axis]
-            cl.append(jnp.where(idx == 0, jnp.int32(lo[axis]), -big))
-            cl.append(jnp.where(idx == n_sh - 1,
-                                jnp.int32(lo[axis] + core[axis] - 1), big))
-        else:
-            cl.append(jnp.int32(0))
-            cl.append(jnp.int32(core[axis] - 1))
-    out = fused_features8_sweep(
-        img, msk, float(sigma), tuple(spacing), float(truncate),
-        stack=False, clamps=jnp.stack(cl),
-    )
-    return tuple(
-        o[lo[0]:lo[0] + core[0], lo[1]:lo[1] + core[1], :] for o in out
-    )
-
-
-def _sweep_block_plan(shape, mesh, sigma, spacing, truncate):
-    """(fits, radii): whether the per-shard halo-extended block still fits
-    the sweep kernel's VMEM rings, and the smoothing radii (rx, ry)."""
-    import math
-
-    from ife_tpu.ops.features import _sweep_fits
-
-    rx = max(1, math.ceil(truncate * float(sigma) / float(spacing[0])))
-    ry = max(1, math.ceil(truncate * float(sigma) / float(spacing[1])))
-    local = list(shape)
-    for i, n in enumerate(mesh.devices.shape):
-        local[i] = local[i] // n + 2 * ((rx if i == 0 else ry) + 1)
-    return _sweep_fits(sigma, spacing, tuple(local), truncate), (rx, ry)
-
-
 @functools.lru_cache(maxsize=256)
-def _features8_fn(mesh: Mesh, shape, sigma: float, spacing, truncate: float,
-                  fused: bool):
-    """Cached jitted shard_map per (mesh, global shape, scale, fused):
-    rebuilding the wrapper per call retraced + recompiled the program
-    per invocation — ruinous for multi-image / multi-scale products
-    (round-4 finding on the 512^3 bin-edges CLI)."""
+def _features8_fn(mesh: Mesh, sigma: float, spacing, truncate: float):
+    """Cached jitted shard_map per (mesh, scale): rebuilding
+    the wrapper per call retraces and recompiles the program per
+    invocation, which multi-image and multi-scale runs cannot afford."""
     pspec = volume_pspec(mesh)
-    saxes = _sharded_axis_map(mesh)
-    if fused:
-        from ife_tpu.ops.features import _sweep_rx_ok
-
-        fits, radii = _sweep_block_plan(shape, mesh, sigma, spacing,
-                                        truncate)
-        # same crossover as features8_auto: past rx ~10 the staged
-        # MXU-smoothing path beats the sweep (r4_probe14/15)
-        fits = fits and _sweep_rx_ok(sigma, spacing, truncate)
-    else:
-        fits = False
-    if fused and fits:
-        sizes = {i: int(n) for i, n in enumerate(mesh.devices.shape)}
-        block = functools.partial(
-            _features8_block_sweep,
-            sigma=sigma, spacing=spacing, truncate=truncate,
-            sharded_axes=saxes, radii=radii, axis_sizes=sizes,
-        )
-    else:
-        block = functools.partial(
-            _features8_block,
-            sigma=sigma, spacing=spacing, truncate=truncate,
-            sharded_axes=saxes, use_fused=fused,
-        )
-
-    return jax.jit(shard_map(
+    block = functools.partial(
+        _features8_block,
+        sigma=sigma, spacing=spacing, truncate=truncate,
+        sharded_axes=_sharded_axis_map(mesh),
+    )
+    per_block = shard_map(
         block,
         mesh=mesh,
-        in_specs=(pspec, pspec),
+        in_specs=(pspec, pspec, P()),
         out_specs=(pspec,) * 8,
-        # pallas_call's ShapeDtypeStruct outputs carry no vma annotation;
-        # the body's collectives are hand-placed, so skip the vma check
+        # the body's collectives are placed by hand; skip the
+        # varying-manual-axes check
         check_vma=False,
-    ))
+    )
+    # the offset is the GLOBAL rounded image mean, so every shard smooths
+    # about the same value as the single-device op
+    return jax.jit(lambda img, msk: per_block(
+        img, msk, stencil.smoothing_offset(img)))
 
 
 def sharded_features8(
@@ -355,7 +213,6 @@ def sharded_features8(
     mesh: Mesh,
     spacing: Sequence[float] = (1.0, 1.0, 1.0),
     truncate: float = 4.5,
-    use_fused=None,
     stack: bool = True,
 ) -> jax.Array:
     """features8 over a block-sharded volume. Returns (X, Y, Z, 8) sharded
@@ -363,9 +220,7 @@ def sharded_features8(
     (stack=False — no channel-last relayout; preferred when consumers read
     channels independently, e.g. the histogram pipelines)."""
     fn = _features8_fn(
-        mesh, tuple(image.shape), float(sigma),
-        tuple(float(v) for v in spacing), float(truncate),
-        _resolve_use_fused(use_fused),
+        mesh, float(sigma), tuple(float(v) for v in spacing), float(truncate),
     )
     out = fn(image, mask)
     if stack:
@@ -374,37 +229,12 @@ def sharded_features8(
 
 
 @functools.lru_cache(maxsize=64)
-def _hessian_eig_fn(mesh: Mesh, spc, fused: bool):
+def _hessian_eig_fn(mesh: Mesh, spc):
     """Cached jitted shard_map (see _features8_fn)."""
     pspec = volume_pspec(mesh)
     saxes = _sharded_axis_map(mesh)
 
     def block(img):
-        if fused:
-            from ife_tpu.kernels.fused import fused_hessian_eig_stream
-
-            if set(saxes) <= {0}:
-                # 1D (x-sharded) mesh: ZERO-COPY halo — the two neighbor
-                # ROWS ride into the stream kernel as separate inputs
-                # (x_halo), no halo-extended materialization of the block
-                # (~3 ms of pure copy at 512^3; y edges are true volume
-                # edges handled by the kernel's own clamp)
-                from ife_tpu.parallel.halo import halo_slabs
-
-                if 0 in saxes:
-                    lo, hi = halo_slabs(img, 0, 1, saxes[0])
-                    halo = (lo, hi)
-                else:
-                    halo = None  # single block: kernel clamps = edges
-                return fused_hessian_eig_stream(
-                    img, spc, block=2, stack=False, x_halo=halo)
-            # 2D mesh: streaming kernel on the halo-extended block (the
-            # kernel's own edge clamps touch only the sliced-away border
-            # layer, whose inward neighbors are real halo data)
-            core = img.shape
-            ext = _halo_or_edge_pad(img, saxes)
-            out = fused_hessian_eig_stream(ext, spc, block=2, stack=False)
-            return tuple(o[1:1 + core[0], 1:1 + core[1], :] for o in out)
         _, H = _grad_hessian_block(img, saxes, spc)
         e = eigenvalue_features(H)
         return tuple(e[..., k] for k in range(6))
@@ -417,16 +247,13 @@ def sharded_hessian_eig(
     image: jax.Array,
     mesh: Mesh,
     spacing: Sequence[float] = (1.0, 1.0, 1.0),
-    use_fused=None,
     stack: bool = True,
 ) -> jax.Array:
     """Hessian -> 6 eigen features of a sharded raw volume: the scaling
     benchmark path (BASELINE.md configs). Returns (X, Y, Z, 6) when
     stack=True, else a tuple of 6 sharded (X, Y, Z) arrays (no
-    channel-last relayout — a size-6 trailing stack lands on the TPU lane
-    axis and costs ~2x the kernel pass itself, CLAUDE.md)."""
-    fn = _hessian_eig_fn(mesh, tuple(float(v) for v in spacing),
-                         _resolve_use_fused(use_fused))
+    channel-last copy)."""
+    fn = _hessian_eig_fn(mesh, tuple(float(v) for v in spacing))
     out = fn(image)
     if stack:
         return jnp.stack(out, axis=-1)

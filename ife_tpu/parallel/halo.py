@@ -3,7 +3,7 @@
 Inside a `shard_map`, a block needs `h` neighbor planes along each sharded
 axis before a radius-`h` stencil can produce its kept region. Interior
 block faces receive real neighbor slabs via `lax.ppermute` (nearest-
-neighbor ICI traffic, ring-attention style); true volume faces replicate
+neighbor traffic, ring-attention style); true volume faces replicate
 the boundary plane — exactly ITK's ZeroFluxNeumann condition (reference
 tools/FiniteDifference_HessianFeatures.cxx:4-7), so a sharded stencil is
 bit-compatible with the single-device ops in ife_tpu.ops.stencil.
@@ -32,30 +32,6 @@ def _edge(x: jnp.ndarray, axis: int, h: int, lo: bool) -> jnp.ndarray:
 def halo_pad(x: jnp.ndarray, axis: int, h: int) -> jnp.ndarray:
     """Single-device fallback: pure edge replication (no mesh axis)."""
     return jnp.concatenate([_edge(x, axis, h, True), x, _edge(x, axis, h, False)], axis=axis)
-
-
-def halo_slabs(
-    x: jnp.ndarray, axis: int, h: int, axis_name: str
-) -> tuple:
-    """(lo, hi) neighbor slabs of width h along `axis` WITHOUT
-    materializing the concatenated extended block — for kernels that
-    accept halo rows as separate inputs (the per-shard stream kernels:
-    a 512^3 extended-block materialization costs ~3 ms of pure copy,
-    measured round 4). Interior faces: ppermute slabs; true faces:
-    edge replication (ZeroFluxNeumann). Requires h <= block extent."""
-    n = lax.axis_size(axis_name)
-    i = lax.axis_index(axis_name)
-    n_local = x.shape[axis]
-    if h > n_local:
-        raise ValueError("halo_slabs requires h <= local extent")
-    right_perm = [(j, j + 1) for j in range(n - 1)]
-    left_perm = [(j, j - 1) for j in range(1, n)]
-    from_left = lax.ppermute(_slab(x, axis, n_local - h, h), axis_name,
-                             right_perm)
-    from_right = lax.ppermute(_slab(x, axis, 0, h), axis_name, left_perm)
-    lo = jnp.where(i == 0, _edge(x, axis, h, True), from_left)
-    hi = jnp.where(i == n - 1, _edge(x, axis, h, False), from_right)
-    return lo, hi
 
 
 def halo_exchange(

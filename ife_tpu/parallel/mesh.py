@@ -1,12 +1,14 @@
 """Device mesh construction and volume sharding.
 
 Volumes are (X, Y, Z) arrays; we block-shard the leading spatial axes over
-a 1D or 2D device mesh (axis names "x", "y"). Z — the minor, lane-mapped
-axis on TPU — stays unsharded so VPU lanes and DMA rows remain contiguous.
+a 1D or 2D device mesh (axis names "x", "y"). Z — the minor, contiguous
+axis — stays unsharded so every shard's lines stay contiguous in memory.
 
 The reference has no distributed layer at all (SURVEY.md §2.4); the design
 here is the standard JAX recipe: build a Mesh, annotate NamedShardings, let
-XLA place collectives on ICI.
+XLA place the collectives (NCCL over NVLink between the cards of a GPU
+host). The cards of one host are joined all to all, so the mesh shape
+follows the decomposition alone.
 """
 from __future__ import annotations
 

@@ -25,10 +25,9 @@ from ife_tpu.stats.histogram import histogram_counts
 @functools.lru_cache(maxsize=64)
 def _masked_histogram_fn(mesh: Mesh):
     """Cached jitted shard_map for one mesh: rebuilding the wrapper per
-    call retraced AND recompiled the whole program per invocation — at
-    64 (scale, feature) channels with the multi-pass Pallas histogram
-    inlined, that recompile loop dominated the 512^3 bin-edges CLI
-    (round-4 finding; the cache turns it into one compile + 63 hits)."""
+    call retraces and recompiles the whole program per invocation, once
+    for each of the 64 (scale, feature) channels of a bin-edges run; the
+    cache turns that into one compile and 63 hits."""
     pspec = volume_pspec(mesh)
 
     def block(v, m, e):
@@ -40,8 +39,7 @@ def _masked_histogram_fn(mesh: Mesh):
 
     # check_vma=False: histogram_counts' chunked lax.scan carries a
     # replicated-zeros accumulator over varying per-shard inputs, which
-    # the vma checker rejects (found on-chip by the 512^3 sharded
-    # bin-edges CLI — small CPU-test shards never reach the scan path;
+    # the vma checker rejects (small shards never reach the scan path;
     # tests/test_parallel.py covers it)
     return jax.jit(shard_map(
         block, mesh=mesh, in_specs=(pspec, pspec, P(None)),
@@ -79,26 +77,18 @@ def _masked_minmax(v, m):
 
 @functools.lru_cache(maxsize=64)
 def _masked_multi_histogram_fn(mesh: Mesh, n_chan: int):
-    """Cached jitted shard_map binning n_chan channels per pass with
-    per-channel edge rows: the weights/mask stream is read once for all
-    channels (kernels.histogram.histogram_counts_multi) instead of once
-    per channel. CPU meshes take the XLA per-channel form (the Pallas
-    kernel has no XLA fallback off-TPU)."""
+    """Cached jitted shard_map binning n_chan channels in one program,
+    each against its own edge row."""
     pspec = volume_pspec(mesh)
 
     def block(*args):
         chans = args[:n_chan]
         m, e2d = args[n_chan], args[n_chan + 1]
         w = (m != 0).astype(jnp.int32)
-        if jax.devices()[0].platform == "tpu":
-            from ife_tpu.kernels.histogram import histogram_counts_multi
-
-            local = histogram_counts_multi(list(chans), e2d, weights=w)
-        else:
-            local = jnp.stack([
-                histogram_counts(chans[c], e2d[c], w)
-                for c in range(n_chan)
-            ])
+        local = jnp.stack([
+            histogram_counts(chans[c], e2d[c], w)
+            for c in range(n_chan)
+        ])
         for name in mesh.axis_names:
             local = jax.lax.psum(local, name)
         return local
@@ -117,17 +107,8 @@ def masked_fine_histograms_multi(
     n_fine: int = 4096,
 ) -> list:
     """masked_fine_histogram for a TUPLE of channels sharing one mask:
-    per-channel (bounds, counts), all channels binned in shared
-    streaming passes (the mask read once per pass instead of once per
-    channel).
-
-    MEASURED SCOPE (round 4): the shared pass wins when the edges fit
-    ONE kernel block (<=127 — e.g. product histogram specs: config 4
-    measured 23.6 vs 30.4 ms for nine 31-edge histograms) and LOSES for
-    fine many-edge histograms (every edge-block pass re-reads all C+1
-    streams: the 4096-edge 512^3 bin-edges CLI measured 2m52s via this
-    path vs 1m51s per-channel), so sharded_feature_fine_histograms
-    deliberately does NOT use it."""
+    per-channel (bounds, counts), all channels binned by one program
+    with the compare-reduce histogram over per-channel edge rows."""
     from ife_tpu.stats.histogram import snap_pow2_grid
 
     bounds_rows = []
@@ -139,8 +120,8 @@ def masked_fine_histograms_multi(
             hi = lo + 1.0
         # SAME grid choice as masked_fine_histogram (the snapped
         # power-of-two grid when it applies) so the two paths return
-        # identical (bounds, counts) pairs; the compare-reduce kernel is
-        # exact on any f32-representable edges, snapped included
+        # identical (bounds, counts) pairs; the compare-reduce is exact
+        # on any f32-representable edges, snapped included
         snapped = (snap_pow2_grid(lo, hi, n_fine)
                    if n_fine % 64 == 0 and ch.dtype == jnp.float32
                    else None)
@@ -192,12 +173,11 @@ def histogram_quantile_edges(
 
 
 @functools.lru_cache(maxsize=16)
-def _masked_fine_mxu_fn(mesh: Mesh, n_fine: int):
-    """Cached jitted shard_map of the arithmetic/MXU fine binning
+def _masked_fine_onehot_fn(mesh: Mesh, n_fine: int):
+    """Cached jitted shard_map of the arithmetic fine binning
     (stats.histogram.uniform_histogram_counts): the grid scalars (m, w)
     ride as traced PARAMETERS, so ONE compile serves every channel and
-    image of the bin-edges pipeline (the per-(channel, grid) recompile
-    was most of the round-4 CLI's 1m51s)."""
+    image of the bin-edges pipeline."""
     pspec = volume_pspec(mesh)
     from ife_tpu.stats.histogram import uniform_histogram_counts
 
@@ -225,10 +205,9 @@ def masked_fine_histogram(
     pass fills `n_fine` equal-width bins.
 
     The bins come from the power-of-two snapped grid
-    (stats.histogram.snap_pow2_grid), binned arithmetically with MXU
-    one-hot accumulation — integer-exact searchsorted semantics at ~1/30
-    the VPU work of the 33-pass compare-reduce the fine edge count forced
-    in round 4. When the grid guard trips (near-constant field far from
+    (stats.histogram.snap_pow2_grid), binned arithmetically with one-hot
+    dot accumulation — integer-exact searchsorted semantics without the
+    O(n_fine)-per-voxel compare-reduce. When the grid guard trips (near-constant field far from
     zero) or n_fine is not a multiple of 64, the compare-reduce path over
     a linspace grid serves as the exact fallback.
 
@@ -249,7 +228,7 @@ def masked_fine_histogram(
                if n_fine % 64 == 0 and values.dtype == jnp.float32 else None)
     if snapped is not None:
         m, k, bounds = snapped
-        fn = _masked_fine_mxu_fn(mesh, n_fine)
+        fn = _masked_fine_onehot_fn(mesh, n_fine)
         counts = np.asarray(
             fn(values, mask, jnp.float32(m), jnp.float32(np.ldexp(1.0, k))),
             dtype=np.float64,
@@ -306,7 +285,6 @@ def sharded_feature_fine_histograms(
     spacing: Sequence[float] = (1.0, 1.0, 1.0),
     truncate: float = 4.5,
     n_fine: int = 4096,
-    use_fused=None,
 ):
     """Per-(scale, feature) fine histograms of masked feature voxels,
     computed without ever materializing a feature volume on host: features
@@ -337,19 +315,10 @@ def sharded_feature_fine_histograms(
 
     out = []
     for s in sigmas:
-        # stack=False: per-channel tuple — the channel-last lane-axis
-        # stack (a ~2x relayout at 512^3) is never materialized.
-        # Channels bin ONE AT A TIME on purpose: the shared-pass multi
-        # form was measured SLOWER for fine (4096-edge) histograms —
-        # every edge-block pass re-reads all C+1 streams, 33x, and the
-        # smaller per-channel VMEM blocks it forces lose more than the
-        # shared mask read saves (512^3 CLI: 1m51s single vs 2m52s
-        # multi, warm). masked_fine_histograms_multi remains for
-        # few-edge cases, where one shared pass IS the win (config 4:
-        # 23.6 vs 30.4 ms).
+        # stack=False: per-channel tuple, the channel-last stack is
+        # never materialized; each channel bins on its own snapped grid
         feats = sharded_features8(img_s, mskf_s, float(s), mesh, spacing,
-                                  truncate, use_fused=use_fused,
-                                  stack=False)
+                                  truncate, stack=False)
         for chan in feats:
             out.append(
                 masked_fine_histogram(chan, mskc_s, mesh, n_fine)

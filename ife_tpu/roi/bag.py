@@ -7,7 +7,7 @@ histIdx = scale*8 + feature; write frequencies into bag row j at column
 offset histIdx * histSize; reset counts after every ROI row fill (the
 reference's accumulate/reset discipline, SURVEY.md §7 quirks).
 
-TPU-first: the feature volumes are computed on device (one fused pass per
+Here the feature volumes are computed on device (one jitted pass per
 scale); binning is vectorized searchsorted/bincount over each ROI's masked
 voxels instead of a per-voxel std::lower_bound loop.
 """
@@ -23,7 +23,7 @@ import jax.numpy as jnp
 
 from ife_tpu.ops.features import features8_auto, NUM_FEATURES
 from ife_tpu.roi.generate import ROI
-from ife_tpu.stats.histogram import histogram_counts_xla
+from ife_tpu.stats.histogram import histogram_counts
 
 
 def _check_hist_spec(hist_edges: Sequence[np.ndarray], n_expected: int) -> int:
@@ -104,33 +104,32 @@ def make_bag(
 
 
 @functools.partial(jax.jit, static_argnames=("size",))
-def roi_feature_histograms_device(
+def roi_feature_counts_device(
     feats: jnp.ndarray,
     mask: jnp.ndarray,
     starts: jnp.ndarray,
     edges: jnp.ndarray,
     size: tuple,
-) -> jnp.ndarray:
-    """Device-side MakeBag inner loop: per-ROI masked feature histograms.
+):
+    """Device-side MakeBag inner loop: per-ROI masked feature histogram
+    COUNTS.
 
     All ROIs share `size` (static), so every crop is a fixed-shape
     lax.dynamic_slice and the whole bag row block is one vmapped program —
-    the TPU-native replacement for the reference's per-voxel
+    the device replacement for the reference's per-voxel
     std::lower_bound loop (tools/MakeBag.cxx:448-457).
 
     Args:
       feats: TUPLE of C (X, Y, Z) channel arrays, or one (X, Y, Z, C)
-        volume. The tuple form is strongly preferred on TPU: building
-        the channel-last volume costs two transient full-volume copies
-        (HBM-fatal at 512^3 next to the kernel outputs).
+        volume. The tuple form is preferred: building the channel-last
+        volume costs a transient full-volume copy.
       mask: (X, Y, Z) labels; nonzero = counted.
       starts: (N, 3) int ROI start corners.
       edges: (C, E) bin edges per channel.
       size: ROI box (sx, sy, sz).
 
     Returns:
-      (N, C, E+1) frequencies (counts / masked voxels; nan if empty,
-      like the reference's divide-by-zero).
+      ((N, C, E+1) int32 counts, (N,) int32 masked-voxel totals).
     """
     # accept a channel-last (X, Y, Z, C) VOLUME (jnp or numpy — an
     # isinstance(jnp.ndarray) check silently mis-iterated numpy volumes
@@ -142,19 +141,25 @@ def roi_feature_histograms_device(
         crops = [jax.lax.dynamic_slice(ch, tuple(start), size)
                  for ch in chans]
         mcrop = jax.lax.dynamic_slice(mask, tuple(start), size)
-        w = (mcrop != 0).astype(jnp.float32).reshape(-1)
+        w = (mcrop != 0).astype(jnp.int32).reshape(-1)
         vox = jnp.stack([c.reshape(-1) for c in crops], axis=1)
-        # the XLA histogram form: this double-vmap (channels here, ROIs
-        # outside) batches the EDGES, which the Pallas kernel's SMEM
-        # operand cannot be — Mosaic rejected the lowering on chip
-        # (round-4 device make-bag finding); ROI crops are tiny, so the
-        # XLA compare-reduce is the right tool anyway
+        # double vmap: channels here, ROIs outside (edges batched per
+        # channel); ROI crops are tiny, one compare-reduce chunk each
         counts = jax.vmap(
-            lambda v, e: histogram_counts_xla(v, e, w), in_axes=(1, 0)
+            lambda v, e: histogram_counts(v, e, w), in_axes=(1, 0)
         )(vox, edges)
-        return counts / w.sum()
+        return counts, w.sum()
 
     return jax.vmap(one)(starts)
+
+
+def _frequencies(counts, totals) -> np.ndarray:
+    """Host-side f64 frequencies from fetched device counts — the same
+    division, in the same precision, as the host bag path."""
+    counts = np.asarray(counts, np.float64)
+    totals = np.asarray(totals, np.float64)[:, None, None]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return counts / totals
 
 
 def _size_classes(rois: Sequence[ROI]):
@@ -162,9 +167,8 @@ def _size_classes(rois: Sequence[ROI]):
     first-appearance order. The device paths run ONE fixed-shape vmapped
     program per class (a fixed-shape dynamic_slice under vmap needs a
     static size), so reference `.ROIInfo` files with heterogeneous boxes
-    (tools/MakeBag.cxx:304-317 accepts per-ROI sizes) keep the device
-    speedup instead of falling back to the host path (round-4 VERDICT: a
-    silent 7x cliff)."""
+    (tools/MakeBag.cxx:304-317 accepts per-ROI sizes) stay on the device
+    path instead of falling back to the host path."""
     classes: dict = {}
     for j, r in enumerate(rois):
         classes.setdefault(r.size, []).append(j)
@@ -210,8 +214,8 @@ def make_bag_device(
     from ife_tpu.ops.features import features8_auto_channels
 
     for i, sigma in enumerate(sigmas):
-        # channel TUPLE: no channel-last materialization (two 4.3 GB
-        # transients at 512^3 — HBM-fatal next to the kernel outputs)
+        # channel TUPLE: no channel-last materialization (a 4.3 GB
+        # transient at 512^3)
         feats = features8_auto_channels(
             img_dev, mask_dev, float(sigma), tuple(spacing))
         edges_block = np.stack([
@@ -221,12 +225,12 @@ def make_bag_device(
         edges_dev = _round_edges_f32(edges_block, feats[0].dtype)
         col0 = i * NUM_FEATURES * hist_size
         for size, idxs in classes:
-            freqs = roi_feature_histograms_device(
+            freqs = _frequencies(*roi_feature_counts_device(
                 feats, mask_dev, jnp.asarray(starts_np[idxs]), edges_dev,
                 size,
-            )  # (n_class, 8, hist_size)
-            bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = np.asarray(
-                freqs, dtype=np.float64).reshape(len(idxs), -1)
+            ))  # (n_class, 8, hist_size)
+            bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = (
+                freqs.reshape(len(idxs), -1))
     return bag
 
 
@@ -282,12 +286,12 @@ def make_bag_sharded(
         edges_dev = _round_edges_f32(edges_block, feats[0].dtype)
         col0 = i * NUM_FEATURES * hist_size
         for size, idxs in classes:
-            freqs = roi_feature_histograms_device(
+            counts, totals = roi_feature_counts_device(
                 feats, msk_s, jnp.asarray(starts_np[idxs]), edges_dev, size
             )
+            freqs = _frequencies(fetch_to_host(counts), fetch_to_host(totals))
             bag[idxs, col0 : col0 + NUM_FEATURES * hist_size] = (
-                fetch_to_host(freqs).astype(np.float64).reshape(
-                    len(idxs), -1))
+                freqs.reshape(len(idxs), -1))
     return bag
 
 

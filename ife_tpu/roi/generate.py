@@ -10,7 +10,7 @@ Reference semantics:
   * Dense sweep (include/ife/ROI/DenseROIGenerator.hxx:21-47): EVERY
     foreground voxel becomes a center; keep fully-inside boxes.
 
-TPU-first: instead of ITK's accept/reject iterator loop, foreground
+Vectorized: instead of ITK's accept/reject iterator loop, foreground
 indices are materialized once and the center->box->inside test is a single
 vectorized filter; random generation draws batches without replacement
 pressure (sampling WITH replacement across batches, like the reference's

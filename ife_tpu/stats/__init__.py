@@ -1,7 +1,6 @@
 from ife_tpu.stats.histogram import (  # noqa: F401
     DenseHistogram,
     histogram_counts,
-    histogram_counts_xla,
     batched_histogram_counts,
 )
 from ife_tpu.stats.equalize import (  # noqa: F401

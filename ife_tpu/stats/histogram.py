@@ -6,19 +6,14 @@ n sorted edges define n+1 bins
 i.e. bin(x) = index of first edge >= x  ==  searchsorted(edges, x, 'left').
 Frequencies are counts / total.
 
-TPU-first design: instead of ITK's one-voxel-at-a-time std::lower_bound
-insert loop (DenseHistogram.h:47-53, the MakeBag hot loop at
+Design: instead of ITK's one-voxel-at-a-time std::lower_bound insert
+loop (DenseHistogram.h:47-53, the MakeBag hot loop at
 tools/MakeBag.cxx:448-457), binning on device is a CUMULATIVE
 COMPARE-REDUCE: C[j] = sum_i w_i * (x_i <= e_j) for each edge, then
-counts = diff(C) — pure broadcast-compare + sum reductions, the shape the
-VPU is built for. For sorted (nondecreasing) edges this is EXACTLY
+counts = diff(C) — pure broadcast-compare + sum reductions that XLA fuses
+into one streaming pass. For sorted (nondecreasing) edges this is EXACTLY
 searchsorted(edges, x, 'left') binning: idx(x) <= j  <=>  x <= e_j.
-A scatter-add (the "obvious" lowering) is pathological on TPU — it
-measured 33.8 s for nine 31-edge histograms at 512^3 where this pass
-takes tens of ms, and its sort/unique temporaries OOM-crashed the TPU
-worker when composed with a feature pass (round 3, BENCH_DETAIL
-config4_error; root-cause record in docs/design.md). Counts accumulate
-in int32 and psum-reduce across shards (SURVEY.md §2.4).
+Counts accumulate in int32 and psum-reduce across shards (SURVEY.md §2.4).
 """
 from __future__ import annotations
 
@@ -48,48 +43,12 @@ def histogram_counts(
       edges: (E,) sorted ascending.
       weights: optional same shape as values — nonnegative integer
         weights (cast to int32; in the product paths a 0/1 mask).
-        Fractional weights are not supported. Both dispatch paths (XLA
-        compare-reduce and the Pallas kernel) sum the weights, not a
-        boolean reduction of them.
+        Fractional weights are not supported; the weights are summed,
+        not reduced as booleans.
 
     Returns:
       (E+1,) int32 counts.
     """
-    v = values.reshape(-1)
-    if weights is None:
-        w = None
-    else:
-        w = weights.reshape(-1).astype(jnp.int32)
-    E = int(edges.shape[0])
-    if E == 0:
-        tot = (jnp.asarray(v.shape[0], jnp.int32) if w is None
-               else jnp.sum(w, dtype=jnp.int32))
-        return tot[None]
-
-    # f32 histograms on TPU go through the Pallas compare-accumulate
-    # kernel (streaming passes with per-lane partials in VMEM —
-    # kernels/histogram.py; 39 vs 137 ms for nine 31-edge 512^3
-    # histograms, ~0.2 vs 1.76 s for a 4096-edge fine histogram,
-    # r4_probe16); the chunked XLA compare-reduce (histogram_counts_xla)
-    # serves CPU, non-f32 dtypes, and vmap contexts — a vmap that
-    # batches the EDGES would batch the kernel's SMEM operand, which
-    # Mosaic rejects (found on-chip in the device make-bag path; use
-    # histogram_counts_xla or histogram_counts_multi there)
-    if v.dtype == jnp.float32 and jax.devices()[0].platform == "tpu":
-        from ife_tpu.kernels.histogram import histogram_counts_pallas
-
-        return histogram_counts_pallas(v, edges, w)
-    return histogram_counts_xla(values, edges, weights)
-
-
-def histogram_counts_xla(
-    values: jnp.ndarray,
-    edges: jnp.ndarray,
-    weights: jnp.ndarray | None = None,
-) -> jnp.ndarray:
-    """The chunked XLA compare-reduce form of histogram_counts — same
-    semantics, no Pallas: safe under vmap with batched edges (the Pallas
-    kernel's SMEM edges operand cannot be batched) and on any backend."""
     v = values.reshape(-1)
     w = None if weights is None else weights.reshape(-1).astype(jnp.int32)
     E = int(edges.shape[0])
@@ -156,26 +115,18 @@ def histogram_counts_xla(
 def batched_histogram_counts(
     values: jnp.ndarray, edges: jnp.ndarray, weights: jnp.ndarray | None = None
 ) -> jnp.ndarray:
-    """Many histograms at once: values (H, N), edges (H, E) -> (H, E+1).
-
-    vmaps the XLA form: batching the per-row EDGES would batch the
-    Pallas kernel's SMEM operand, which Mosaic rejects (for big
-    shared-weight channel batches use
-    kernels.histogram.histogram_counts_multi instead)."""
-    fn = jax.vmap(histogram_counts_xla,
+    """Many histograms at once: values (H, N), edges (H, E) -> (H, E+1)."""
+    fn = jax.vmap(histogram_counts,
                   in_axes=(0, 0, None if weights is None else 0))
     return fn(values, edges, weights)
 
 
 # ---------------------------------------------------------------------------
-# fine (many-bin) equal-width histograms: arithmetic binning + MXU one-hot
+# fine (many-bin) equal-width histograms: arithmetic binning + one-hot dot
 # ---------------------------------------------------------------------------
 
-# one-hot operand dtype for the MXU accumulation: 0/1 values are exact
-# in both. int8 (2x the v5e MXU paper rate, half the operand bytes) was
-# measured a WASH on chip — 38.1 vs 36.6 ms at 512^3, counts identical
-# (r5_probe24): the pass is bound by the one-hot producer fusion and
-# dot pipelining, not MXU flops. bf16 stays the default.
+# one-hot operand dtype of the accumulation dot: 0/1 values are exact in
+# bf16, and the dot accumulates in f32, exact to 2^24 per chunk
 _ONEHOT_DTYPE = jnp.bfloat16
 
 def snap_pow2_grid(lo: float, hi: float, n_fine: int):
@@ -225,20 +176,18 @@ def uniform_histogram_counts(
     tail-merge (counts[0] += raw[0]; the upper tail is empty because the
     grid covers [lo, hi]).
 
-    TPU-first replacement for the ceil(E/127)-pass compare-reduce at
-    large E (the round-4 fine histogram burned 4096 VPU compare/adds per
-    voxel, 285-397 ms/channel at 512^3): on THIS edge family the bin
-    index is pure arithmetic — d = (x - e_0)·2^-k, floor, then a 3-edge
+    Replacement for the O(E)-per-voxel compare-reduce at large E: on THIS
+    edge family the bin index is pure arithmetic — d = (x - e_0)·2^-k, floor, then a 3-edge
     windowed correction where each candidate edge is RECONSTRUCTED as
     (m + j)·w (exact in f32: |m| + j <= 2^22 by the snap guard, w a power
     of two — no gathers, no Sterbenz assumptions; fl(x - e_0) may round,
     which only perturbs the candidate by ±1, and the correction compares
-    x against exact edge VALUES). Accumulation rides the MXU: the index
-    splits into coarse (b >> 6) and fine (b & 63) halves, their one-hot
-    rows (chunk, 64) — exact in bf16, 0/1 entries — meet in one
+    x against exact edge VALUES). Accumulation is a matrix product: the
+    index splits into coarse (b >> 6) and fine (b & 63) halves, their
+    one-hot rows (chunk, 64) — exact in bf16, 0/1 entries — meet in one
     dot_general per chunk, accumulating all n_fine bins in f32 (exact to
-    2^24 per chunk) — ~130 VPU ops + 2·64·64 MXU flops per voxel instead
-    of 4096 VPU ops.
+    2^24 per chunk) — ~130 elementwise ops + 2·64·64 flops per voxel
+    instead of n_fine compares.
 
     Args:
       values: f32, any shape (flattened).
@@ -279,18 +228,12 @@ def uniform_histogram_counts(
         dt = _ONEHOT_DTYPE
         ohc = ((c[:, None] == iota_c) & (ww[:, None] != 0)).astype(dt)
         ohf = (f[:, None] == iota_f).astype(dt)
-        # two (chunk, 64) one-hot operands meeting in one dot. A packed
-        # A^T-A Gram form ([ohc*w | ohf] as one (chunk, 128) operand,
-        # counts in the off-diagonal block) was built on the full-MXU-
-        # tile-utilization theory and measured 3.5x SLOWER on chip
-        # (130.0 vs 36.7 ms at 512^3, r5_probe21 vs r5_probe18): the
-        # concatenate materializes an extra operand stream and the
-        # self-contraction defeats XLA's fusion of the compare into the
-        # dot — the two-dot form stands.
-        acc_t = jnp.int32 if dt == jnp.int8 else jnp.float32
+        # two (chunk, 64) one-hot operands meeting in one dot; 0/1 bf16
+        # operands with f32 accumulation are exact, so no precision
+        # setting is needed here (unlike the f32 smoothing conv)
         return jax.lax.dot_general(
             ohc, ohf, (((0,), (0,)), ((), ())),
-            preferred_element_type=acc_t,
+            preferred_element_type=jnp.float32,
         )  # (G, 64) exact integer-valued
 
     chunk = 1 << 19

@@ -1,8 +1,8 @@
 // ife_native — host-side native runtime components.
 //
-// TPU-native framework analog of the reference's compiled libraries
+// The framework's analog of the reference's compiled libraries
 // (libIO/libHR2Reader/libString, reference src/IO/CMakeLists.txt:1-8):
-// the device compute path is JAX/XLA/Pallas; this library provides the
+// the device compute path is JAX/XLA; this library provides the
 // host-side hot paths around it:
 //   * HR2 binary volume codec (zlib streaming, reference
 //     src/IO/HR2Reader.cxx:11-222 format)

@@ -82,7 +82,7 @@ def test_fuzz_matches_numpy_f64():
 
 
 def test_fuzz_f32_accuracy():
-    """f32 path (the TPU production dtype) must stay within 1e-4 relative
+    """f32 path (the device production dtype) must stay within 1e-4 relative
     to the f64 oracle on well-scaled Hessian-like inputs."""
     rng = np.random.default_rng(7)
     M = _random_sym(5000, rng, scale=10.0)

@@ -1,6 +1,6 @@
 """Golden test: the flagship features8 op vs the NumPy/SciPy re-derivation.
 
-This is the TPU rebirth of the reference's §3.1 call stack
+This is the JAX rebirth of the reference's §3.1 call stack
 (ExtractFeatures -> ImageToEmphysemaFeaturesFilter); target tolerance is
 the BASELINE.json north star (1e-5 max abs, here much tighter in f64).
 """
@@ -39,7 +39,7 @@ def test_features8_matches_numpy_f64():
 
 
 def test_features8_f32_within_north_star():
-    """f32 (TPU production dtype) vs f64 oracle, per-channel budget.
+    """f32 (device production dtype) vs f64 oracle, per-channel budget.
 
     The 1e-5 north star (BASELINE.md) holds for channels 0-3 and 7. It is
     UNREACHABLE for Eigenvalue3 / LoG / GaussianCurvature — and the gap

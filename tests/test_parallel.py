@@ -158,7 +158,7 @@ def test_masked_fine_histograms_multi_matches_single():
 
 
 def test_masked_fine_histogram_non64_bins_fallback():
-    """n_fine not a multiple of 64 cannot take the arithmetic/MXU path;
+    """n_fine not a multiple of 64 cannot take the arithmetic one-hot path;
     the compare-reduce linspace fallback must serve it with the same
     conventions (total == masked count, grid covers the data)."""
     from ife_tpu.parallel.stats import masked_fine_histogram
@@ -331,6 +331,6 @@ def test_buffer_donation_aliasing_safe():
     got = np.asarray(jax.jit(fn, donate_argnums=0)(donated_in, mask))
     np.testing.assert_array_equal(got, want)
     if jax.devices()[0].platform != "cpu":
-        # CPU jit ignores donation; on TPU/GPU the buffer must really be
+        # CPU jit ignores donation; on a GPU the buffer must really be
         # donated (aliased away), proving the op never re-reads it
         assert donated_in.is_deleted()

@@ -133,7 +133,7 @@ def test_extract_labels_mode_and_ignore():
 
 def test_roi_feature_histograms_device_matches_host():
     import jax.numpy as jnp
-    from ife_tpu.roi.bag import make_bag, roi_feature_histograms_device
+    from ife_tpu.roi.bag import make_bag, roi_feature_counts_device
     from ife_tpu.ops.features import features8
     from ife_tpu.core.volume import synthetic_ct, sphere_mask
     from ife_tpu.roi.generate import generate_random_rois
@@ -147,12 +147,11 @@ def test_roi_feature_histograms_device_matches_host():
 
     feats = features8(vol.data, mask.data, 1.0)
     starts = jnp.asarray([r.index for r in rois])
-    freqs = roi_feature_histograms_device(
+    counts, totals = roi_feature_counts_device(
         feats, mask.data, starts, jnp.asarray(edges), (7, 7, 7)
     )
-    np.testing.assert_allclose(
-        np.asarray(freqs).reshape(4, -1), bag_host, atol=1e-6
-    )
+    freqs = np.asarray(counts) / np.asarray(totals)[:, None, None]
+    np.testing.assert_allclose(freqs.reshape(4, -1), bag_host, atol=1e-6)
 
 
 def test_make_bag_device_matches_host():

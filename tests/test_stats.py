@@ -128,68 +128,76 @@ def test_histogram_counts_integer_values_chunked():
         [per[0], per[1] + per[2], per[3], per[4]])
 
 
-def test_histogram_counts_pallas_kernel_matches_oracle():
-    """The Pallas compare-accumulate kernel (interpreter mode) vs the
-    searchsorted oracle: duplicate edges, on-edge values, +/-inf, NaN
-    (tail bin), weighted and unweighted, padded and exact-block sizes."""
-    from ife_tpu.kernels.histogram import histogram_counts_pallas
+def _oracle(values, edges, weights=None):
+    want = np.zeros(len(edges) + 1, np.int64)
+    np.add.at(want, np.searchsorted(np.asarray(edges, np.float64),
+                                    np.asarray(values, np.float64), "left"),
+              1 if weights is None else weights)
+    return want
 
+
+@pytest.mark.parametrize("n", [5000, (1 << 22) + 5])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_histogram_counts_matches_oracle(n, weighted):
+    """histogram_counts vs the searchsorted oracle: duplicate edges,
+    on-edge values, +/-inf, NaN (tail bin), weighted and unweighted, one
+    chunk and the padded multi-chunk scan."""
     rng = np.random.default_rng(9)
     edges = np.sort(np.concatenate([rng.standard_normal(7), [0.25, 0.25]])
                     ).astype(np.float32)
-    for n in (2048 * 128, 5000):
-        v = rng.standard_normal(n).astype(np.float32)
-        v[:3] = [np.inf, -np.inf, np.nan]
-        v[3 : 3 + edges.size] = edges
-        for weighted in (False, True):
-            w = ((rng.uniform(size=n) > 0.4).astype(np.int32)
-                 if weighted else None)
-            want = np.zeros(edges.size + 1, np.int64)
-            np.add.at(want, np.searchsorted(edges, v, "left"),
-                      w if weighted else 1)
-            got = np.asarray(histogram_counts_pallas(
-                jnp.asarray(v), jnp.asarray(edges),
-                None if w is None else jnp.asarray(w), interpret=True))
-            np.testing.assert_array_equal(got.astype(np.int64), want,
-                                          err_msg=f"n={n} w={weighted}")
+    v = rng.standard_normal(n).astype(np.float32)
+    v[:3] = [np.inf, -np.inf, np.nan]
+    v[3 : 3 + edges.size] = edges
+    w = (rng.uniform(size=n) > 0.4).astype(np.int32) if weighted else None
+    got = np.asarray(histogram_counts(
+        jnp.asarray(v), jnp.asarray(edges),
+        None if w is None else jnp.asarray(w)))
+    np.testing.assert_array_equal(got.astype(np.int64), _oracle(v, edges, w))
 
 
-def test_histogram_counts_pallas_multiblock_edges():
-    """E > 128 runs as independent cumulative edge blocks (multiple
-    passes) — counts must still match the oracle exactly."""
-    from ife_tpu.kernels.histogram import histogram_counts_pallas
-
+@pytest.mark.parametrize("n_edges", [129, 300, 1000])
+def test_histogram_counts_many_edges(n_edges):
+    """More edges than one 128-wide block, weighted."""
     rng = np.random.default_rng(10)
-    edges = np.linspace(-2.5, 2.5, 300).astype(np.float32)
+    edges = np.linspace(-2.5, 2.5, n_edges).astype(np.float32)
     v = rng.standard_normal(4000).astype(np.float32)
     w = (rng.uniform(size=v.size) > 0.5).astype(np.int32)
-    want = np.zeros(edges.size + 1, np.int64)
-    np.add.at(want, np.searchsorted(edges, v, "left"), w)
-    got = np.asarray(histogram_counts_pallas(
-        jnp.asarray(v), jnp.asarray(edges), jnp.asarray(w),
-        interpret=True))
-    np.testing.assert_array_equal(got.astype(np.int64), want)
+    got = np.asarray(histogram_counts(jnp.asarray(v), jnp.asarray(edges),
+                                      jnp.asarray(w)))
+    np.testing.assert_array_equal(got.astype(np.int64), _oracle(v, edges, w))
 
 
-def test_histogram_counts_pallas_empty_input():
-    """Zero-length values must return zero counts (the round-4 advisor
-    found a ZeroDivisionError in the block math on empty f32 input —
-    an empty masked selection must behave like the XLA path)."""
-    from ife_tpu.kernels.histogram import (
-        histogram_counts_multi, histogram_counts_pallas,
-    )
+@pytest.mark.parametrize("n_edges,weighted", [(3, False), (3, True),
+                                              (0, True)])
+def test_histogram_counts_empty_input(n_edges, weighted):
+    """Zero-length values give zero counts (an empty masked selection)."""
+    edges = jnp.asarray(np.arange(n_edges, dtype=np.float32))
+    v = jnp.zeros((0,), jnp.float32)
+    w = jnp.zeros((0,), jnp.int32) if weighted else None
+    got = np.asarray(histogram_counts(v, edges, w))
+    np.testing.assert_array_equal(got, np.zeros(n_edges + 1, np.int64))
 
-    edges = jnp.asarray([0.0, 1.0, 2.0], jnp.float32)
-    got = np.asarray(histogram_counts_pallas(
-        jnp.zeros((0,), jnp.float32), edges, interpret=True))
-    np.testing.assert_array_equal(got, np.zeros(4, np.int64))
-    gotw = np.asarray(histogram_counts_pallas(
-        jnp.zeros((0,), jnp.float32), edges,
-        jnp.zeros((0,), jnp.int32), interpret=True))
-    np.testing.assert_array_equal(gotw, np.zeros(4, np.int64))
-    gotm = np.asarray(histogram_counts_multi(
-        [jnp.zeros((0,), jnp.float32)] * 2, edges, interpret=True))
-    np.testing.assert_array_equal(gotm, np.zeros((2, 4), np.int64))
+
+def test_uniform_histogram_counts_empty_input():
+    from ife_tpu.stats.histogram import uniform_histogram_counts
+
+    got = np.asarray(uniform_histogram_counts(
+        jnp.zeros((0,), jnp.float32), jnp.zeros((0,), jnp.int32),
+        jnp.float32(0), jnp.float32(1), 64))
+    np.testing.assert_array_equal(got, np.zeros(64, np.int64))
+
+
+def test_batched_histogram_counts_weighted():
+    """Per-row edges and weights (the multi-channel binning form)."""
+    rng = np.random.default_rng(13)
+    v = rng.standard_normal((3, 5000)).astype(np.float32)
+    edges = np.sort(rng.standard_normal((3, 9)), axis=1).astype(np.float32)
+    w = (rng.uniform(size=(3, 5000)) > 0.4).astype(np.int32)
+    got = np.asarray(batched_histogram_counts(
+        jnp.asarray(v), jnp.asarray(edges), jnp.asarray(w)))
+    for c in range(3):
+        np.testing.assert_array_equal(got[c].astype(np.int64),
+                                      _oracle(v[c], edges[c], w[c]))
 
 
 def test_snap_pow2_grid_properties():
@@ -213,7 +221,7 @@ def test_snap_pow2_grid_properties():
 
 
 def test_uniform_histogram_counts_exact_vs_searchsorted():
-    """The arithmetic/MXU binning must be INTEGER-EXACT against the
+    """The arithmetic one-hot binning must be INTEGER-EXACT against the
     searchsorted-left oracle on its snapped grid: on-edge values,
     zero-crossing ranges, grids far from zero (the Sterbenz-free
     windowed-correction cases), 0/1 weights, and the chunked path."""
@@ -253,35 +261,6 @@ def test_uniform_histogram_counts_exact_vs_searchsorted():
         np.testing.assert_array_equal(
             got.astype(np.int64), oracle(v, w01, bounds, n_fine),
             err_msg=f"range=({lo},{hi}) n_fine={n_fine}")
-
-
-def test_histogram_counts_multi_matches_per_channel():
-    """The multi-channel kernel (one pass, shared weights stream) must
-    equal per-channel histogram_counts exactly — shared and per-channel
-    edges, weighted and not, padded sizes."""
-    from ife_tpu.kernels.histogram import histogram_counts_multi
-
-    rng = np.random.default_rng(13)
-    n = 5000
-    chans = [rng.standard_normal(n).astype(np.float32) for _ in range(3)]
-    shared = np.sort(rng.standard_normal(9)).astype(np.float32)
-    per = np.sort(rng.standard_normal((3, 9)), axis=1).astype(np.float32)
-    w = (rng.uniform(size=n) > 0.4).astype(np.int32)
-    for edges in (shared, per):
-        for weights in (None, w):
-            got = np.asarray(histogram_counts_multi(
-                [jnp.asarray(c) for c in chans], jnp.asarray(edges),
-                None if weights is None else jnp.asarray(weights),
-                interpret=True))
-            for c in range(3):
-                e_c = edges if edges.ndim == 1 else edges[c]
-                want = np.zeros(10, np.int64)
-                np.add.at(want, np.searchsorted(e_c, chans[c], "left"),
-                          1 if weights is None else weights)
-                np.testing.assert_array_equal(
-                    got[c].astype(np.int64), want,
-                    err_msg=f"c={c} per={edges.ndim == 2} "
-                            f"w={weights is not None}")
 
 
 def test_batched_histogram_counts():

@@ -2,6 +2,7 @@
 import json
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from ife_tpu.parallel.launcher import ShardManifest, distributed_init
@@ -93,3 +94,58 @@ def test_resample_2d_bspline_order3():
     src = img[np.round(I).clip(0, n - 1).astype(int),
               np.round(J).clip(0, n - 1).astype(int)]
     np.testing.assert_array_equal(got0, src)
+
+
+# --- persistent compilation cache location ---------------------------------
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    import jax
+
+    from ife_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before  # sets nothing
+
+
+def test_compile_cache_default_is_fixed_checkout_path(monkeypatch):
+    import os
+
+    import jax
+
+    from ife_tpu.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        got = compile_cache.enable_compile_cache()
+        assert got == compile_cache.REPO_CACHE_DIR
+        assert jax.config.jax_compilation_cache_dir == got
+        assert compile_cache.enable_compile_cache() == got  # stable
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert got == os.path.join(repo, ".jax_cache")
+    with open(os.path.join(repo, ".gitignore")) as f:
+        assert ".jax_cache/" in f.read().split()
+
+
+def test_cli_main_sets_up_compile_cache(monkeypatch):
+    from ife_tpu.cli.main import main as cli
+    from ife_tpu.utils import compile_cache
+
+    calls = []
+    monkeypatch.setattr(compile_cache, "enable_compile_cache",
+                        lambda: calls.append(1) or "x")
+    with pytest.raises(SystemExit):
+        cli(["extract-features", "--help"])
+    assert calls == []  # --help exits before any device work
+    cli(["convert-hr2", "/nonexistent.hr2", "/nonexistent.nii"])
+    assert calls == [1]
+
+
+def test_tests_write_no_compile_cache():
+    import jax
+
+    assert jax.config.jax_enable_compilation_cache is False
